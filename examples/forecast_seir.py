@@ -15,6 +15,10 @@ def main():
 
     import jax
 
+    from magi_v2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
@@ -26,12 +30,15 @@ def main():
 
     try:
         ts_obs, X_obs, _ = load_seir_csv(t_max=4.0, d_obs=20)
-    except (FileNotFoundError, OSError):
+        print("dataset: reference CSV SEIR_seed=0 (load_seir_csv)")
+    except FileNotFoundError:
         ts_obs, X_obs, _ = simulate_ode(
             seir_f_vec, x0=np.array([0.1, 0.05, 0.0]),
             thetas=np.array([6.0, 0.6, 1.8]), t_max=4.0, n_obs=81,
             noise_sd=0.005,
         )
+        print("dataset: simulated SEIR (simulate_ode, seed 0) — the "
+              "reference CSV is absent")
 
     cfg = MagiConfig()
     if args.quick:

@@ -20,6 +20,10 @@ def main():
 
     import jax
 
+    from magi_v2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)

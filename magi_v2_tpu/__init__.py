@@ -1,9 +1,10 @@
-"""magi_v2_tpu — a TPU-native JAX framework for MAnifold-constrained Gaussian
-process Inference (MAGI; Yang, Wong & Kou, PNAS 2021).
+"""magi_v2_tpu — a JAX framework for MAnifold-constrained Gaussian process
+Inference (MAGI; Yang, Wong & Kou, PNAS 2021) on an accelerator (NVIDIA
+H100 GPU; the CPU backend runs the tests and the float64 setup).
 
-Re-designed from scratch for TPU (jax / XLA / pallas / pjit), providing the
+Re-designed from scratch in jax / XLA, providing the
 full capability surface of the reference implementation
-(``/root/reference/magi_v2.py``): Matern nu=2.01 GP kernel matrices and their
+(reference ``magi_v2.py``): Matern nu=2.01 GP kernel matrices and their
 derivative cross-covariances, GP hyperparameter MLE with Fourier-informed
 priors, theta / latent-trajectory initialization, a fused tempered
 log-posterior, and a vmapped multi-chain NUTS/HMC sampler with in-warmup

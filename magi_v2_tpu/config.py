@@ -35,9 +35,8 @@ class MagiConfig:
     hparam_num_iters: int = 1000         # magi_v2.py:654
     # "adam" (reference parity, magi_v2.py:654) or "lbfgs" (jitted
     # on-device L-BFGS, ops/lbfgs.py — the BASELINE.json north-star path;
-    # measured: 18 iters to a marginally lower MAP than Adam-1000, 36x
-    # faster execution, ~2 s heavier first-call compile). Both run as
-    # ONE device dispatch.
+    # measured: 18 iters to a marginally lower MAP than Adam-1000). Both
+    # run as ONE device dispatch.
     hparam_optimizer: str = "adam"
     # Where to evaluate the GP marginal likelihood: "obs" fits on the raw
     # observations at observation times (statistically sound: recovers the
@@ -65,17 +64,18 @@ class MagiConfig:
     adapt_mass_matrix: bool = True
 
     # Run initial_fit's device work (hyperparameter MLE, theta init, kernel
-    # matrices + pinv) on the host CPU backend. The setup is small but
-    # precision-critical: float32 pinv corrupts the precision operators and
-    # float64 emulation on TPU measured NaNs in the hyperparameter MLE;
-    # native CPU float64 is both correct and fast at these sizes. Sampling
-    # still runs on the default (TPU) backend in MagiConfig.dtype.
-    # Requires jax.config.update("jax_enable_x64", True) for f64.
+    # matrices + pinv) on the host CPU backend, in float64 (scoped x64).
+    # The setup is small but precision-critical: float32 pinv corrupts the
+    # precision operators, and native CPU float64 is both correct and fast
+    # at these sizes. Sampling still runs on the default backend (the GPU)
+    # in MagiConfig.dtype. With False, setup runs on the default backend
+    # in whatever precision the global x64 flag gives; chip_smoke.py
+    # phase 3 compares the two in f64 on the GPU.
     setup_on_cpu: bool = True
 
     # --- numerics ---
     # Parity mode is float64 (the reference is float64 end to end,
-    # magi_v2.py:89,136,226-227). float32 is the TPU-fast mode.
+    # magi_v2.py:89,136,226-227). float32 is the fast sampling mode.
     dtype: jnp.dtype = jnp.float64
     # Diagonal jitter added to the GP covariance before Cholesky in the
     # hyperparameter MLE; 1e-6 mirrors the TFP GaussianProcess default the

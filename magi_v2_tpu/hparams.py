@@ -1,7 +1,8 @@
 """GP hyperparameter fitting: Matern (phi1, phi2) + noise sigma^2 MLE with
 Fourier-informed priors.
 
-Re-implements reference _fit_kernel_hparams (magi_v2.py:538-691) TPU-first:
+Re-implements reference _fit_kernel_hparams (magi_v2.py:538-691) as jitted
+device code:
 
 - The Fourier prior (magi_v2.py:549-565) is host-side NumPy (one FFT per
   component at setup time).
@@ -9,7 +10,7 @@ Re-implements reference _fit_kernel_hparams (magi_v2.py:538-691) TPU-first:
   mean, observation noise, and TruncatedNormal priors (magi_v2.py:574-628) —
   is a single jitted function: the Matern Gram matrices come from our
   differentiable Bessel ladder, the D marginal likelihoods are a *batched*
-  Cholesky via vmap (MXU/XLA-friendly), and the 1000 Adam steps run inside
+  Cholesky via vmap, and the 1000 Adam steps run inside
   one lax.scan (the reference crosses the Python<->XLA boundary once per
   step, magi_v2.py:677-678).
 - Parameters are optimized in softplus pre-space exactly like the

@@ -1,7 +1,7 @@
 """Exact-posterior MAP + Laplace approximation for MAGI.
 
-Why this exists (round-4 adjudication, results/lorenz_joint_map_probe.json
-+ BASELINE_MEASURED round4): at dense grids (Lorenz N_I=1025) the EXACT
+Why this exists (round-4 adjudication, results/lorenz_joint_map_probe.json,
+DEVIATIONS.md #25): at dense grids (Lorenz N_I=1025) the EXACT
 beta=1 MAGI posterior is unbiased — its joint mode recovers theta to
 within ~0.7% — but it is intrinsically too stiff for fixed-metric HMC
 (the K^{-1} manifold operator scales ~h^-4; measured frozen step sizes

@@ -1,5 +1,6 @@
 """Banded precision operators: storage, conversion, and matvec/quadratic
-forms with O(N*b) cost — MXU block-banded tiles with a diagonal-form XLA fallback.
+forms with O(N*b) cost — block-banded GEMM tiles with a diagonal-form XLA
+fallback.
 
 The reference's ``bandsize`` option truncates C^{-1}, K^{-1}, m to a band but
 keeps storing and multiplying them DENSE (magi_v2.py:271-274; SURVEY.md §5),
@@ -8,13 +9,13 @@ real: diagonal-offset storage (D, 2b+1, N) plus a BLOCK-banded
 (nb, 2hw+1, 128, 128) tile form, which turn the O(N^2) per-leapfrog cost
 into O(N*b) and the O(D*N^2) memory into O(D*N*b) — the honest "blockwise
 attention" analog for this workload, and what makes N_I >= 4k grids
-(Lorenz dense config) fit on chip.
+(Lorenz dense config) fit on one device.
 
 Two apply paths:
-- block_banded_matvec: 128x128 tiles contracted in one batched einsum —
-  the MXU-native TPU path (a hand-written Pallas diagonal kernel was tried
-  and rejected: Mosaic requires 128-aligned dynamic lane-slices, and the
-  VPU shifted-accumulate loses to the MXU by ~10x anyway at b ~ 100).
+- block_banded_matvec: 128x128 tiles contracted in one batched einsum,
+  which XLA lowers to batched GEMMs (cuBLAS on the GPU). Plain jnp, no
+  hand-written kernel: a shifted-accumulate diagonal kernel would trade
+  dense GEMM tiles for unaligned elementwise reads.
 - banded_matvec: diagonal-offset shifted accumulate in plain XLA with a
   custom VJP (transposed band) — the reference form used for tests and
   small-N CPU work.
@@ -169,17 +170,18 @@ def banded_quadratic_form(band, x):
 
 
 # ---------------------------------------------------------------------------
-# Block-banded form — the MXU-native path
+# Block-banded form — the GEMM path
 # ---------------------------------------------------------------------------
 #
-# Diagonal-offset banded matvecs are VPU work with unaligned shifted reads,
-# which Mosaic cannot express on TPU (dynamic lane-slices must be
-# 128-aligned). The TPU-right layout is BLOCK-banded: partition rows into
+# Diagonal-offset banded matvecs are elementwise work with unaligned
+# shifted reads. The BLOCK-banded layout instead partitions rows into
 # T=128 tiles; a half-bandwidth b touches hw = ceil(b/T) neighbor tiles each
 # side, so A becomes (nb, 2hw+1, T, T) dense tiles and the matvec is ONE
-# batched (T, T) @ (T,) einsum on the MXU. ~2x the MACs of diagonal storage
-# at ~25x the throughput, natively differentiable (pure gather-free jnp at
-# apply time), O(N * (2hw+1) * T) memory.
+# batched (T, T) @ (T,) einsum — GEMMs once the chain axis is batched in.
+# ~2x the MACs of diagonal storage, natively differentiable (pure
+# gather-free jnp at apply time), O(N * (2hw+1) * T) memory. T=128 was
+# chosen for the previous accelerator's 128x128 matrix unit; it is a valid
+# GEMM tile on the GPU and has not been re-tuned there.
 
 
 def banded_to_blocks(band, T: int = 128):
@@ -214,13 +216,13 @@ def _block_banded_matvec_core(blocks, x, hw_lo: int, hw_hi: int):
 
     blocks: (*B, nb, hw_lo + hw_hi + 1, T, T); x: (*E, *B, N) — extra
     leading dims *E (e.g. chains) become GEMM free dimensions. N <= nb*T
-    (zero-padded internally). Pure einsum + pad/slice — rides the MXU and
-    differentiates natively.
+    (zero-padded internally). Pure einsum + pad/slice — lowers to batched
+    GEMMs and differentiates natively.
 
     Performance note: the blocks must NOT be broadcast across *E — keeping
     them chain-free lets XLA contract (s, t) as one (T, nw*T) x (nw*T, E)
-    GEMM per (batch, tile); a broadcast version measured 7x slower (batched
-    matvecs instead of GEMMs).
+    GEMM per (batch, tile); a broadcast version runs as batched matvecs
+    instead of GEMMs.
     """
     blocks = jnp.asarray(blocks)
     x = jnp.asarray(x)
@@ -286,14 +288,15 @@ def banded_diag_tile_inverses(blocks, N: int | None = None):
     factor (banded_to_blocks_upper layout), for
     block_banded_triangular_solve_upper.
 
-    Compute these ONCE at setup in float64 and cast: on TPU the fused
-    per-tile inverse-GEMM then runs at the matmul precision the caller
-    pins, whereas an in-graph triangular_solve is a monolithic XLA op
-    whose internal block expansion does NOT honor
+    Compute these ONCE at setup in float64 and cast: the fused per-tile
+    inverse-GEMM then runs at the matmul precision the caller pins,
+    whereas an in-graph triangular_solve is a monolithic XLA op whose
+    internal block expansion need not honor
     ``jax.default_matmul_precision`` — measured on the banded GN sampler
     at Lorenz N_I=1025: in-graph solves collapsed the adapted step size
-    to 1.6e-7 (bf16 internal passes at kappa(U) ~ 2e3), while the
-    f64-precomputed tile inverses behave like the CPU f64 oracle.
+    to 1.6e-7 (reduced-precision internal passes at kappa(U) ~ 2e3),
+    while the f64-precomputed tile inverses behave like the CPU f64
+    oracle.
 
     Rows at global index >= N (tile zero padding) get a unit diagonal so
     the tile is invertible; the padded solution stays exactly 0.
@@ -319,7 +322,7 @@ def block_banded_triangular_solve_upper(blocks, y, diag_inv=None):
     Back substitution over block rows as one lax.scan (sequential depth
     nb = ceil(N/T)), each step: one (T, T) tile-inverse GEMM plus nwu-1
     (T, T) GEMMs against the rolling buffer of already-solved blocks —
-    all batched over *E on the MXU.
+    all batched over *E as GEMMs.
 
     This is the EXACT unwhitening x = U^{-1} z for the banded
     Gauss-Newton Cholesky factor Lambda = U'U: unlike the band-truncated
@@ -328,7 +331,7 @@ def block_banded_triangular_solve_upper(blocks, y, diag_inv=None):
     leaving eig(W'LamW) spread over 14 decades), the solve gives
     U^{-T} Lambda U^{-1} = I identically. f32-safe WHEN the diagonal-tile
     inverses are precomputed in f64 (banded_diag_tile_inverses — see its
-    docstring for the TPU precision trap this avoids): error
+    docstring for the precision trap this avoids): error
     ~kappa(U)*eps_f32 = sqrt(kappa(Lambda))*eps ~ 2e3 * 6e-8 ~ 1e-4
     relative (kappa(Lambda) measured 5e6).
 

@@ -2,7 +2,7 @@
 
 These run ONCE per fit on the host — banded Cholesky factorization and
 storage conversions — and produce the operators the device-side sampler
-applies per leapfrog via the O(N*b) block-banded MXU matvecs and
+applies per leapfrog via the O(N*b) block-banded matvecs and
 triangular solves in ops/banded.py. Keeping the factorizations in
 f64 on the host mirrors the library's precision policy (README "Precision
 policy"): float32 factorization of the ill-conditioned MAGI precision

@@ -21,7 +21,7 @@ so the function is smoothly differentiable to any depth the program needs
 (the MAGI kernel matrices need two z-derivatives).
 
 Everything is fixed-iteration (lax.fori_loop with static bounds), static
-shape, and vectorized over z — XLA/TPU friendly.
+shape, and vectorized over z — XLA friendly.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def _steed_cf2(z, mu: float):
 
     # Convergence freeze: once |q*delh| <= eps*|s| the carry stops updating.
     # Without this the auxiliary q1/q2 recurrence grows without bound and
-    # overflows float32 (TPU fast mode) long before iteration 160.
+    # overflows float32 (the fast sampling dtype) long before iteration 160.
     eps = jnp.finfo(dt).eps
     done0 = jnp.zeros_like(z, dtype=bool)
 

@@ -1,16 +1,17 @@
 """Multi-chip scale-out: shard MCMC chains across a device mesh.
 
 The reference has no multi-device code at all (single process, single CPU
-device, single chain — magi_v2.py:287,383; SURVEY.md §2). The TPU-native
-scale-out for MAGI is data-parallel over *chains*: chains are
-embarrassingly parallel, so we lay the vmapped chain axis over a 1-D
-``chains`` mesh axis with jax.sharding and let XLA partition the whole
-warmup+sampling scan — collectives only appear where cross-chain statistics
-are pooled (the mean acceptance probability for dual averaging and the
-Welford mass-matrix moments), and those are tiny all-reduces that ride ICI.
+device, single chain — magi_v2.py:287,383; SURVEY.md §2). The scale-out
+for MAGI is data-parallel over *chains*: chains are embarrassingly
+parallel, so we lay the vmapped chain axis over a 1-D ``chains`` mesh axis
+with jax.sharding and let XLA partition the whole warmup+sampling scan —
+collectives only appear where cross-chain statistics are pooled (the mean
+acceptance probability for dual averaging and the Welford mass-matrix
+moments), and those are tiny all-reduces that XLA hands to NCCL over the
+NVLink that joins the GPUs of one host all to all.
 
-No hand-written communication backend is needed: this *is* the TPU
-equivalent of the NCCL/MPI layer a GPU framework would carry (SURVEY.md §2
+No hand-written communication backend is needed: the SPMD partitioner
+inserts the collectives from the input sharding alone (SURVEY.md §2
 "Collective comm backend" row).
 """
 

@@ -15,8 +15,8 @@ sigma^2 and theta are sampled in unconstrained space through softplus
 (+ lower bound sigma^2_LB for sigma^2) with change-of-variables Jacobians
 (magi_v2.py:318-323).
 
-TPU-first design: t1/t2 are batched (D, N, N) @ (D, N) contractions via
-einsum — XLA lowers these straight onto the MXU, fuses the elementwise
+Accelerator design: t1/t2 are batched (D, N, N) @ (D, N) contractions via
+einsum — XLA lowers these to batched GEMMs, fuses the elementwise
 epilogue, and the whole value+gradient is ONE jitted function (the
 reference pays a TF-op-graph walk per NUTS leapfrog; here each leapfrog is
 a single fused XLA computation). vmap over a leading chains axis gives the
@@ -54,7 +54,7 @@ class PosteriorData(NamedTuple):
     # when present, quadratic forms are evaluated as ||R x||^2 / ||S r||^2 —
     # identical math, but float32-safe (the raw x\'Ax form sums ~1e8-magnitude
     # cancelling terms and destroys f32 energies; measured NUTS acceptance
-    # -> 0 on TPU). Factors must be computed in float64 at setup.
+    # -> 0 in float32). Factors must be computed in float64 at setup.
     C_inv_sqrts: jax.Array = None
     K_inv_sqrts: jax.Array = None
 
@@ -135,7 +135,7 @@ def make_posterior_data(
 
 class BandedPosteriorData(NamedTuple):
     """PosteriorData variant with precision operators in BLOCK-banded
-    storage (D, nb, nw, 128, 128) — O(N_I*b) matvecs on the MXU instead of
+    storage (D, nb, nw, 128, 128) — O(N_I*b) batched tile GEMMs instead of
     O(N_I^2) (ops/banded.py; the reference's bandsize option keeps banded
     matrices dense, magi_v2.py:271-274)."""
 
@@ -154,7 +154,7 @@ class BandedPosteriorData(NamedTuple):
     # (upper-triangular, same block-banded storage). When present, t1/t2
     # evaluate as ||V x||^2 / ||U r||^2 — float32-safe PSD sums, the banded
     # analog of the dense path's C_inv_sqrts/K_inv_sqrts (the raw x'Ax forms
-    # cancel ~1e8-magnitude terms and destroy f32 energies on TPU).
+    # cancel ~1e8-magnitude terms and destroy f32 energies).
     C_sqrt_blocks: jax.Array = None
     K_sqrt_blocks: jax.Array = None
 
@@ -242,7 +242,7 @@ def log_posterior_given_t1(
 
     Whitened samplers compute t1 natively in their own coordinates: the raw
     x' C^{-1} x form sums ~1e8-magnitude terms with massive cancellation,
-    which destroys float32 energies (measured: NUTS acceptance -> 0 on TPU);
+    which destroys float32 energies (measured: NUTS acceptance -> 0);
     z-space forms are well-conditioned.
 
     With ``ref``, t2 is evaluated RELATIVE to the reference point (see
@@ -334,7 +334,7 @@ def log_posterior(
     if isinstance(data, BandedPosteriorData):
         from magi_v2_tpu.ops.banded import block_banded_matvec
 
-        # O(N_I*b) block-banded path (batched MXU tiles); factored
+        # O(N_I*b) block-banded path (batched tile GEMMs); factored
         # ||V x||^2 / ||U r||^2 forms when the banded Cholesky factors are
         # present (float32-safe — see BandedPosteriorData)
         if data.C_sqrt_blocks is not None:
@@ -348,7 +348,7 @@ def log_posterior(
         else:
             t2 = jnp.sum(resid * block_banded_matvec(data.K_blocks, resid))
     else:
-        # t1: GP prior quadratic forms — batched MXU matvecs, in factored
+        # t1: GP prior quadratic forms — batched matvecs, in factored
         # ||R x||^2 form when sqrt factors are present (float32-safe)
         if data.C_inv_sqrts is not None:
             t1 = jnp.sum(jnp.einsum("dnm,dm->dn", data.C_inv_sqrts, X_cent) ** 2)

@@ -4,7 +4,7 @@ cross-validated cubic-spline smoothing.
 These are one-time host-side setup steps (the reference also runs them on the
 host: _discretize at magi_v2.py:475-498, _linear_interpolate at
 magi_v2.py:509-527, cv_cubic_smoother at magi_v2.py:695-770). They produce the
-static arrays that the jitted TPU compute path consumes: the discretization
+static arrays that the jitted device compute path consumes: the discretization
 grid I, the NaN-free index bookkeeping for the observation likelihood, and
 smoothed initial trajectories.
 

@@ -3,7 +3,7 @@ step-size adaptation, pooled diagonal mass-matrix warmup, and in-graph
 logarithmic temperature annealing.
 
 Replaces the reference's tfp.mcmc stack (magi_v2.py:360-396,838-889) with a
-TPU-native design: the whole chain loop is one lax.scan inside one jit; the
+one-jit design: the whole chain loop is one lax.scan inside one jit; the
 annealing step counter is threaded through the scan carry (the reference
 mutates a tf.Variable from inside jit — the crash recorded in its committed
 notebooks, SURVEY.md §4); chains vmap over a leading axis and shard over

@@ -1,11 +1,11 @@
-"""Fixed-length (jittered) HMC transition — the synchronous TPU fast path.
+"""Fixed-length (jittered) HMC transition — the synchronous fast path.
 
 Vmapped NUTS pays a SIMD tax: a lax.while_loop under vmap runs every chain
 until the DEEPEST tree of the batch finishes each step, so wall-clock is set
 by the max trajectory length over 256 chains. This kernel runs a fixed
 number of leapfrogs per step — identical for all chains, with the length
 jittered by a shared uniform factor per step (breaking resonances the way
-ChEES-HMC does) — so the batch stays in lockstep and the MXU never idles.
+ChEES-HMC does) — so the batch stays in lockstep and no lane idles.
 
 Metropolis-corrected, so the stationary distribution is exact. Use
 ``SamplerConfig(algorithm="hmc", hmc_num_leapfrogs=L)``; step size is

@@ -7,7 +7,7 @@ scales but cannot rotate correlated ridges — and the (sigma_sqs_pre,
 thetas_pre) tail block of the MAGI state is strongly correlated for most
 systems (SEIR beta/gamma are ridge-coupled through R0), which is what
 forces long HMC trajectories (measured: theta ESS_min 829 at L=64 vs
-18038 at L=192 on the SEIR bench, BASELINE_MEASURED.json).
+18038 at L=192 on the SEIR bench, results/seir_dense_mass_probe.json).
 
 ``TailDenseMass`` keeps the O(N_I*D) trajectory block diagonal (anything
 else would defeat the banded large-grid scaling) and carries a dense

@@ -3,7 +3,7 @@
 From-scratch JAX implementation of multinomial NUTS (Hoffman & Gelman 2014;
 Betancourt 2017 for the multinomial/biased-progressive variant) operating on
 a flat state vector. Replaces tfp.mcmc.NoUTurnSampler in the reference stack
-(magi_v2.py:361-364). Design constraints, per the TPU/XLA execution model:
+(magi_v2.py:361-364). Design constraints, per the XLA execution model:
 
 - No recursion: trajectory doubling is a lax.while_loop over depth; each
   subtree is built by a lax.while_loop over leaves with the O(log n)
@@ -15,7 +15,8 @@ a flat state vector. Replaces tfp.mcmc.NoUTurnSampler in the reference stack
   U-turn checks mask a fixed fori over max_depth slots.
 - vmap-compatible: all control flow is lax, so chains batch cleanly; under
   vmap a while_loop runs until every lane terminates, with lanes masked out
-  once done — the natural SIMD execution of divergent chains on TPU.
+  once done — the natural SIMD execution of divergent chains on an
+  accelerator.
 
 The target callable returns the *tempered* log-posterior; temperature enters
 through the closure (threaded in-graph by the caller), fixing the reference's

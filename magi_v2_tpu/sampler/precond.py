@@ -129,7 +129,7 @@ def build_gn_whitening(
     bounded by the preconditioned curvature ratio), so evaluating it in
     float32 is safe — unlike the raw x' C^{-1} x form, whose ~1e8-magnitude
     term cancellation destroys float32 energies (measured: NUTS acceptance
-    -> 0 on TPU).
+    -> 0).
 
     Pass the clamped sqrt factors R = C^{-1/2}, S = K^{-1/2} whenever the
     sampler evaluates t1/t2 through them (predict() always does): then
@@ -355,7 +355,7 @@ def unwhiten_Z_banded(Z, mu_ds, U_blocks, diag_inv=None):
     """X (..., N, D) from z (..., N, D): x = mu + U^{-1} z via the exact
     block-banded back substitution (U_blocks in banded_to_blocks_upper
     layout; diag_inv from ops.banded.banded_diag_tile_inverses, computed
-    in f64 at setup — see its docstring for the TPU precision trap)."""
+    in f64 at setup — see its docstring for the precision trap)."""
     from magi_v2_tpu.ops.banded import block_banded_triangular_solve_upper
 
     shape = Z.shape
@@ -444,19 +444,19 @@ def make_tempered_logp_grad_gn_hybrid(
     GN Cholesky factor, unwhitened per leapfrog by the exact O(ND*b)
     block-banded back substitution. Energies are the dense mode's: t1/t2
     and the m-matvec go through the FULL factored operators
-    (``data.C_inv_sqrts``/``K_inv_sqrts``, D batched N^2 MXU matvecs per
+    (``data.C_inv_sqrts``/``K_inv_sqrts``, D batched N^2 matvecs per
     eval) — NO band truncation of the posterior at all.
 
-    Why this mode exists (round-4 adjudication, BASELINE_MEASURED round4
-    "beta1_adjudication"): at Lorenz N_I=1025/bandsize=100 the banded
+    Why this mode exists (round-4 adjudication, DEVIATIONS.md #26,
+    results/lorenz_joint_map_probe.json): at Lorenz N_I=1025/bandsize=100 the banded
     TARGET drops 63% of K^{-1}'s Frobenius mass and its theta mode sits
     ~(-16,-7,-11)% off the exact posterior's, which sits at truth. The
     truncation is a TARGET error; the truncated GN factor is only a
     PRECONDITIONER, whose band error costs step size, not correctness.
     Splitting the two lets the sampler keep the only whitening that is
     stable at dense-grid sizes while sampling the right distribution.
-    Dense matvecs are affordable here: block-banded only overtakes dense
-    above N_I ~ 2-4k (BASELINE_MEASURED "block_banded_vs_dense_matvec").
+    Dense matvecs are affordable at these grid sizes; where block-banded
+    overtakes dense on the GPU has not been measured.
 
     ``data`` must be the DENSE PosteriorData with C_inv_sqrts present.
     ``ref``/``z0`` (built from the SAME exact operators) are required at

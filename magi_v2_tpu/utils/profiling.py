@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is a wall-clock pair around sampling
 (magi_v2.py:402-409) and tqdm bars. Here (SURVEY.md §5 rebuild items):
-per-phase timers, a jax.profiler trace context for TPU timelines, and a
+per-phase timers, a jax.profiler trace context for device timelines, and a
 structured sampler report (acceptance / divergences / step size / tree
 depths / ESS / R-hat)."""
 

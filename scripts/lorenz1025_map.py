@@ -3,8 +3,8 @@ dense-grid answer (BASELINE.json configs[4] accuracy bar: "theta within
 1%, trajectory CI overlap").
 
 Complement to scripts/lorenz1025_long.py: the sampled recipe targets a
-band-truncated approximation (adjudicated round 4, BASELINE_MEASURED
-"beta1_adjudication") and exact-posterior HMC is eps-collapsed at this
+band-truncated approximation (adjudicated round 4, DEVIATIONS.md #25,
+results/lorenz_joint_map_probe.json) and exact-posterior HMC is eps-collapsed at this
 grid density, but the exact posterior's joint mode is at truth and a
 whitened L-BFGS-B reaches it in minutes on CPU f64. This script runs the
 productized MAGI_v2.map_estimate() at the acceptance config and records

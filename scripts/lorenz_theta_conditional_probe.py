@@ -3,7 +3,7 @@ band-truncation artifact.
 
 The converged N_I=1025 acceptance run (results/lorenz1025_r3j.json) carries
 a theta offset of ~(-10%, -3%, -11%) that the floor sweep showed is
-tempering-independent (BASELINE_MEASURED round3 "tempered_floor_sweep").
+tempering-independent (results/lorenz1025_floor_*.json).
 What the floor sweep canNOT distinguish is whether the offset lives in the
 MAGI posterior itself or in the bandsize=100 truncation of the precision
 operators (at N_I=1025 the kernel's index-space correlation length is 2x

@@ -8,7 +8,7 @@ magnitudes (|a0| = |C^{-1/2}(x0 - mu)|, |s0|) — huge at the spline init
 (GP-prior quadratic ~1e7) — and to the chains' whitened distance from the
 anchor, which the tempered warmup's flattening grows without bound. This
 probe measures, on CPU with the sampling dtype mirrored exactly (f32,
-x64 off globally — the TPU failure reproduces in this env):
+x64 off globally — the accelerator failure reproduces in this env):
 
 1. the anchor residual magnitudes |a0|/|s0| at the init vs the f64 MAP
    (map_laplace.map_estimate, exact operators);
@@ -48,7 +48,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # x64 OFF globally: mirrors the TPU process (library setup scopes its
+    # x64 OFF globally: mirrors the f32 sampling process (library setup scopes its
     # own enable_x64; the f32 sampling-path numerics reproduce on CPU)
     import jax.numpy as jnp
 
@@ -94,7 +94,7 @@ def main():
 
         # ---- f64 MAP of the exact posterior (the anchor candidate);
         # cached under the same key scripts/lorenz1025_long.py --map-anchor
-        # uses, so the TPU run skips the CPU solve
+        # uses, so the sampling run skips the CPU solve
         cache = (f"results/lorenz_map_cache_N{model.mag_I}"
                  f"_b{args.bandsize}_s{SIG_FIX:g}.npz")
         t0 = time.time()

@@ -4,7 +4,7 @@ Both N_I=2049 hybrid runs (b=100 600+300, b=200 2000+500 — results/
 lorenz2049_hybrid_probe.json, lorenz2049_hybrid_diag2.json) eps-collapsed
 (frozen chains, rhat ~1e148) under the exact recipe that converges at
 N_I=1025 (results/lorenz1025_hybrid_f03_long_r5.json, eps 0.165). This
-probe measures WHY, without burning TPU hours: the largest eigenvalue of
+probe measures WHY, without accelerator hours: the largest eigenvalue of
 the NEGATIVE Hessian of the whitened tempered log-posterior at the chain
 init point, via Hessian-vector-product power iteration (f64, CPU). A
 leapfrog integrator is stable only for eps <~ 2/sqrt(lambda_max), so
@@ -32,7 +32,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # x64 stays OFF globally, mirroring the TPU process environment: the
+    # x64 stays OFF globally, mirroring the f32 sampling process: the
     # library's setup runs under its own scoped enable_x64, and the theta
     # initializer's Adam trajectory is dtype-sensitive at disc=3 (f32 env
     # lands (9.02, 30.44, 3.15); a global-x64 env lands (-3.4, 35.9,
@@ -81,7 +81,7 @@ def main():
     results = []
     for disc, b in [(2, 100), (3, 100), (3, 200), (3, 400)]:
         # mirror scripts/lorenz1025_long.py: f32 sampling dtype (setup
-        # still runs f64 on CPU); the TPU failure reproduces in f32 on CPU
+        # still runs f64 on CPU); the accelerator failure reproduces in f32 on CPU
         cfg = MagiConfig().replace(dtype=jnp.float32)
         model = MAGI_v2(D_thetas=3, ts_obs=ts_obs, X_obs=X_obs,
                         bandsize=b, f_vec=lorenz_f_vec, config=cfg)

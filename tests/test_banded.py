@@ -1,5 +1,5 @@
-"""Banded precision operators vs dense oracles (CPU runs the XLA fallback;
-the Pallas kernel path is exercised on TPU and in interpret mode)."""
+"""Banded precision operators vs dense oracles (plain jnp/lax; no
+hand-written kernel — the same code runs on the CPU and the GPU)."""
 
 import jax
 import jax.numpy as jnp

@@ -84,7 +84,7 @@ def test_block_banded_triangular_solve_matches_dense():
         )
         ref = np.linalg.solve(U, y.T).T
         np.testing.assert_allclose(x, ref, atol=1e-8 * np.abs(ref).max())
-        # precomputed f64 diagonal-tile inverses (the TPU-safe path)
+        # precomputed f64 diagonal-tile inverses (the precision-safe path)
         from magi_v2_tpu.ops.banded import banded_diag_tile_inverses
 
         dinv = banded_diag_tile_inverses(blocks, N)

@@ -7,7 +7,7 @@ the magi_v2 beta tempering down-weighted the manifold constraint; and
 the posterior is genuinely multimodal (a decoupled-H mode out-densities
 the truth basin, so only basin-trapped — centered, unannealed — sampling
 reproduces the published recoveries). See DEVIATIONS.md #5,
-examples/hes1.py, and BASELINE_MEASURED.json "hes1_recovery_centered".
+examples/hes1.py, and results/hes1_long2.json.
 """
 
 import numpy as np
@@ -93,8 +93,8 @@ def test_posterior_prefers_truth_over_degenerate(hes1_model):
 def test_hes1_theta_recovery(hes1_model):
     """Full recovery in the basin-trapped (reference-regime) mode — the
     examples/hes1.py recipe at a CI-sized config. The CONVERGED authority
-    for this posterior is the 16x3000+8000 run (results/hes1_long2.json,
-    BASELINE_MEASURED.json round3: rhat_max 1.028, ESS_min 639, 16/16
+    for this posterior is the 16x3000+8000 run (results/hes1_long2.json:
+    rhat_max 1.028, ESS_min 639, 16/16
     chains in the truth basin): theta ratios to truth
     (0.69, 1.26, 1.11, 1.05, 1.17, 1.36, 0.57) — i.e. the g~0.57x and
     f~1.36x offsets are properties of the posterior itself (g posterior

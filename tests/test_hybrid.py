@@ -12,7 +12,7 @@ The invariants certified here:
 2. The hybrid target genuinely differs from the banded (truncated) target
    when band truncation drops real operator mass — the whole point of the
    mode (round-4 adjudication: truncation is a TARGET error at
-   Lorenz N_I=1025/b=100, BASELINE_MEASURED round4 beta1_adjudication).
+   Lorenz N_I=1025/b=100, DEVIATIONS.md #26).
 3. Validation: hybrid requires a bandsize and reparam='precond'.
 4. End-to-end predict(storage='hybrid') runs and returns finite draws.
 """

@@ -8,7 +8,7 @@ inverse-softplus floor for sigma/theta) are the SAME ones predict() uses
 — and must validate shapes/keys/pinning conflicts loudly. No reference
 counterpart (the reference is single-chain from one heuristic init,
 magi_v2.py:374-383); the feature exists for overdispersed / Laplace-
-scattered starts (Hes1 unobserved-H mixing, BASELINE_MEASURED round4).
+scattered starts (Hes1 unobserved-H mixing, DEVIATIONS.md #23).
 """
 
 import jax.numpy as jnp

@@ -99,8 +99,8 @@ def test_sharded_throughput_no_pathological_overhead():
     """SPMD partitioning over the 8-device mesh must not blow up the wall
     vs the unsharded run on identical work. True multi-device speedup is
     not measurable here (CI hosts can have 1 physical core — virtual CPU
-    devices share it), so this guards the overhead side only; the scaling
-    table in BASELINE_MEASURED.json records the measured numbers."""
+    devices share it), so this guards the overhead side only; the
+    four-GPU comparison is chip_smoke.py --four-gpus."""
     import time
 
     from magi_v2_tpu.sampler import run_nuts_chains
