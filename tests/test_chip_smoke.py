@@ -2,6 +2,7 @@
 helper and bench.py's peak table. The same phases run at real widths on
 the GPU (``-m gpu`` tests at the end, and ``python chip_smoke.py``)."""
 
+import json
 import os
 
 import jax
@@ -95,8 +96,8 @@ def test_parity_bessel_tiny():
                                            (65, 2.0, (100.0, 0.2))])
 def test_parity_kernel_matrices_tiny(n_i, t_max, phi):
     failures = []
-    rec = cs.parity_kernel_matrices(jax, n_i, t_max, *phi, failures,
-                                    time_ops=False)
+    rec = cs.parity_kernel_matrices(jax, n_i, t_max, *phi, (1e-10, 1e-10),
+                                    failures, time_ops=False)
     assert failures == [] and _gated_ok(rec)
 
 
@@ -126,7 +127,7 @@ def test_seir_phase_tiny(seir_model):
     failures = []
     out = cs.phase_seir(jax, model, setup_s, failures, num_chains=4,
                         steps=20, nuts_chains=2, nuts_steps=10,
-                        warm_rerun=False, draws_on_device_check=False)
+                        warm_rerun=False)
     assert all("theta off truth" in f or "rhat" in f for f in failures)
     assert out["run2_nuts_f64_defaults"]["progress_lines"] > 0
     assert np.all(np.isfinite(out["run3_map_estimate"]["theta_map"]))
@@ -149,14 +150,15 @@ def test_dense_grid_phase_tiny():
                               num_chains=4, burnin=10, results=10,
                               leapfrogs=4)
     assert failures == []
-    assert out["draws_finite"] and out["hybrid_vs_centered_f64"]["ok"]
+    assert out["draws_finite"] and out["hybrid_f64_vs_numpy"]["ok"]
+    assert out["hybrid_f64_vs_centered"]["ok"]
     assert out["hybrid_f32_vs_f64"]["ok"]
 
 
 def test_four_device_phase_on_virtual_cpus():
     failures = []
     out = cs.phase_four_gpus(jax, failures, n_dev=4, num_chains=8, steps=10,
-                             n_obs=21, trace_collectives=True)
+                             n_obs=21)
     assert failures == []
     assert out["f64_4x4"]["frac_chains_within_1e-6"] == 1.0
 
@@ -170,7 +172,8 @@ def test_parity_real_widths_on_gpu(gpu_device):
     model, _ = cs.fit_seir(jnp.float32)
     failures = []
     with jax.default_device(gpu_device):
-        cs.phase_parity(jax, model, failures, time_ops=False)
+        recs = cs.phase_parity(jax, model, failures, time_ops=False)
+    print(json.dumps(recs, default=cs._num))
     assert failures == []
 
 
@@ -179,4 +182,5 @@ def test_dense_grid_on_gpu(gpu_device):
     failures = []
     with jax.default_device(gpu_device):
         out = cs.phase_dense_grid(jax, failures)
+    print(json.dumps(out, default=cs._num))
     assert failures == [] and out["draws_finite"]

@@ -18,22 +18,34 @@ from magi_v2_tpu.posterior import (
 def numpy_log_posterior(
     X, sigma_pre, theta_pre, beta_temp, C_invs, m_ds, K_invs, mu_ds, beta,
     N_ds, not_nan_idxs, not_nan_cols, y_obs, sigma_LB, f_vec_np,
+    C_inv_sqrts=None, K_inv_sqrts=None,
 ):
-    """Direct NumPy transliteration of magi_v2.py:308-348."""
+    """Direct NumPy transliteration of magi_v2.py:308-348.
+
+    With C_inv_sqrts / K_inv_sqrts (R, S with R'R = C^{-1}, S'S = K^{-1})
+    the quadratics are sums of squares, ||R x||^2 and ||S r||^2, and
+    C_invs / K_invs are not read: at dense grids the x'Ax form cancels
+    terms far larger than the result, even in float64."""
     softplus = lambda x: np.log1p(np.exp(x))
     sigma_sqs = softplus(sigma_pre) + sigma_LB
     thetas = softplus(theta_pre)
     log_jac_sigma = np.sum(sigma_pre - softplus(sigma_pre))
     log_jac_theta = np.sum(theta_pre - softplus(theta_pre))
 
+    def quad(A, A_sqrt, d, v):
+        if A_sqrt is None:
+            return v @ A[d] @ v
+        w = A_sqrt[d] @ v
+        return w @ w
+
     D = X.shape[1]
     X_cent = (X - mu_ds[None, :]).T  # (D, N)
-    t1 = sum(X_cent[d] @ C_invs[d] @ X_cent[d] for d in range(D))
+    t1 = sum(quad(C_invs, C_inv_sqrts, d, X_cent[d]) for d in range(D))
     f_vals = f_vec_np(X, thetas).T
     t2 = 0.0
     for d in range(D):
         r = f_vals[d] - m_ds[d] @ X_cent[d]
-        t2 += r @ K_invs[d] @ r
+        t2 += quad(K_invs, K_inv_sqrts, d, r)
     t3 = np.sum(N_ds * np.log(2 * np.pi * sigma_sqs))
     Xf = X.ravel()
     t4 = np.sum(
@@ -182,3 +194,31 @@ def test_sqrt_factored_matches_plain():
         np.testing.assert_allclose(
             float(lp2(X, s, t, 0.9)), float(lp1(X, s, t, 0.9)), rtol=1e-9
         )
+
+
+def test_factored_numpy_transliteration_matches_factored_posterior():
+    """The NumPy transliteration through R, S (||R x||^2, ||S r||^2) agrees
+    with the fused posterior given the same factors."""
+    from magi_v2_tpu.ops.linalg import sym_sqrt
+
+    I, X_obs, obs_index, C_invs, m_ds, K_invs, mu_ds, beta, sigma_LB = _fixture(31)
+    N, D = X_obs.shape
+    R = np.asarray(sym_sqrt(jnp.asarray(C_invs)))
+    S = np.asarray(sym_sqrt(jnp.asarray(K_invs)))
+    data = make_posterior_data(I, C_invs, m_ds, K_invs, mu_ds, beta,
+                               obs_index, sigma_LB, jnp.float64,
+                               C_inv_sqrts=R, K_inv_sqrts=S)
+    lp = jax.jit(make_log_posterior(data, seir_f_vec))
+    rng = np.random.default_rng(32)
+    for _ in range(3):
+        X = rng.normal(size=(N, D)) * 0.2 + 0.3
+        sig, th = rng.normal(size=(D,)), rng.normal(size=(3,))
+        ref = numpy_log_posterior(
+            X, sig, th, 0.8, None, m_ds, None, mu_ds, beta,
+            obs_index.N_ds, obs_index.not_nan_idxs, obs_index.not_nan_cols,
+            obs_index.y_observed, sigma_LB,
+            lambda Xv, tv: np.asarray(seir_f_vec(jnp.asarray(I), jnp.asarray(Xv), jnp.asarray(tv))),
+            C_inv_sqrts=R, K_inv_sqrts=S,
+        )
+        ours = float(lp(jnp.asarray(X), jnp.asarray(sig), jnp.asarray(th), 0.8))
+        np.testing.assert_allclose(ours, ref, rtol=1e-10)
